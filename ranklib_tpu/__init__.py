@@ -1,7 +1,7 @@
-"""ranklib_tpu — a TPU-native learning-to-rank engine.
+"""ranklib_tpu — an accelerator-native learning-to-rank engine (JAX, GPU).
 
 A from-scratch JAX/XLA/Pallas framework with the full capability surface of
-RankLib (reference: codelibs/ranklib, surveyed in /root/repo/SURVEY.md):
+RankLib (reference: codelibs/ranklib, surveyed in SURVEY.md):
 
 * ten rankers — MART, RankNet, RankBoost, AdaRank, Coordinate Ascent,
   LambdaRank, LambdaMART, ListNet, Random Forests, Linear Regression —
@@ -15,10 +15,10 @@ RankLib (reference: codelibs/ranklib, surveyed in /root/repo/SURVEY.md):
   (ref: eval/Evaluator.java:~70).
 
 It is NOT a Java port: tree boosting is reformulated as vectorized histogram
-building (one-hot matmuls on the MXU), batched |ΔNDCG|-weighted lambda
-kernels, and on-chip split search; neural rankers are jitted JAX loops;
-query groups shard data-parallel over a jax.sharding.Mesh with psum'd
-histogram/gradient statistics.
+building (one-hot matmuls on the tensor cores), batched |ΔNDCG|-weighted
+lambda programs, and on-device split search; neural rankers are jitted
+JAX loops; query groups shard data-parallel over a jax.sharding.Mesh
+with psum'd histogram/gradient statistics.
 """
 
 __version__ = "0.1.0"

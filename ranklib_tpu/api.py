@@ -38,12 +38,8 @@ _backend_ready = False
 
 
 def _ensure_backend() -> None:
-    """CLI-equivalent backend pick for library users (round-5 finding:
-    ``rl.train`` died with a raw xla_bridge RuntimeError when the single
-    TPU chip was held by another process — the CLI's
-    ``RANKLIB_TPU_PLATFORM`` forcing and held-chip CPU fallback lived
-    only in ``cli._ensure_backend``). Runs once, before the first
-    compute-touching API call."""
+    """The CLI's JAX preparation (compile cache) for library users. Runs
+    once, before the first compute-touching API call."""
     global _backend_ready
     if _backend_ready:
         return

@@ -14,7 +14,7 @@ Line format (ref: learning/DataPoint.java:~120):
 * ``#`` starts a description kept verbatim for re-ranking output;
 * gzip files are handled transparently.
 
-The reference keeps per-doc objects (Dense/SparseDataPoint); on TPU we go
+The reference keeps per-doc objects (Dense/SparseDataPoint); here we go
 straight to dense per-query float32 matrices — sparsity is an IO concern
 only (SURVEY.md §7: MSLR is dense).
 """

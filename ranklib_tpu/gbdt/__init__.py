@@ -1,4 +1,4 @@
-"""Histogram-GBDT engine (TPU-first core for MART / LambdaMART / RF).
+"""Histogram-GBDT engine (the array-program core for MART / LambdaMART / RF).
 
 The reference's tree machinery (learning/tree/{FeatureHistogram,
 RegressionTree,Split,Ensemble}.java) dissolves into array programs here:

@@ -5,7 +5,7 @@ The reference computes, once per training run, ≤ ``nThreshold`` (flag
 when there are few enough, otherwise an evenly spaced grid between min and
 max. A doc goes left iff ``value <= threshold``.
 
-TPU-first shape: thresholds become a padded ``[F, B]`` float matrix and the
+Array shape: thresholds become a padded ``[F, B]`` float matrix and the
 training data becomes one integer bin matrix ``binned[N, F]`` with
 ``bin = searchsorted(thresholds_f, value, side='left')`` so that
 ``value <= thresholds_f[b]  ⟺  bin <= b``. All histogram and split work

@@ -13,7 +13,7 @@ FeatureHistogram.findBestSplit:~300):
   (here: right) child directly, derive the sibling as parent − child
   (ref: FeatureHistogram construct-from-parent/sibling:~150).
 
-TPU-first shape: the whole growth loop is one ``lax.fori_loop`` under jit
+Accelerator shape: the whole growth loop is one ``lax.fori_loop`` under jit
 over fixed-size node arrays of ``M = 2·nLeaves − 1`` slots. Doc→leaf
 assignment is an ``[N]`` int array updated by masked select per split; the
 histogram is a 2-channel (Σgrad, count) ``[F, B]`` masked segment-sum.
@@ -29,7 +29,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from ranklib_tpu.ops.histogram import histogram_fn, histogram_multi_fn
+from ranklib_tpu.ops.histogram import hist_multi_xla, hist_xla
 from ranklib_tpu.ops.split_scan import best_splits
 
 
@@ -47,24 +47,12 @@ class TreeArrays(NamedTuple):
     impacts: jnp.ndarray      # [F] f32 deviance reduction per split feature
 
 
-# backend-selected histogram: Pallas one-hot-matmul kernel on TPU,
-# segment-sum on CPU (see ops/histogram.py)
-_hist_for_mask = None
-
-
-def _hist(binned, grad, mask, n_bins):
-    global _hist_for_mask
-    if _hist_for_mask is None:
-        _hist_for_mask = histogram_fn()
-    return _hist_for_mask(binned, grad, mask, n_bins)
-
-
 def _split1(hist, mls, fmask=None):
     """Best split of ONE node's histogram [F, B, 2] → (gain, f, b, ok).
     Maximizes S_L²/c_L + S_R²/c_R over candidates with both sides >=
     minLeafSupport; first max wins on ties (feature-major order, matching
     the reference's scan order — FeatureHistogram.findBestSplit:~300).
-    Routed through ops.split_scan (fused Pallas kernel on TPU)."""
+    Computed by ops.split_scan."""
     g, f, b, ok = best_splits(
         hist[None], mls, None if fmask is None else fmask[None])
     return g[0], f[0], b[0], ok[0]
@@ -80,8 +68,8 @@ def grow_tree(binned_T, grad, n_bins: int, n_leaves: int,
     """Grow one regression tree on pseudo-responses ``grad``.
 
     binned_T: [F, N] int32 pre-binned features, FEATURE-MAJOR (docs on the
-    lane axis — the Pallas histogram layout; split-column reads become row
-    gathers); grad: [N] float32.
+    minor axis; split-column reads become row gathers); grad: [N]
+    float32.
 
     doc_mask: optional [N] bool mask OR f32 doc weights — weight 0 (or
     False) excludes a doc from every histogram and count; integer weights
@@ -91,7 +79,8 @@ def grow_tree(binned_T, grad, n_bins: int, n_leaves: int,
     axis_name: when set, the docs axis is sharded over that mesh axis and
     every histogram / node statistic is all-reduced with ``lax.psum`` —
     split decisions then replicate deterministically on all devices (the
-    TPU equivalent of the reference's MyThreadPool feature partitioning,
+    data-parallel counterpart of the reference's MyThreadPool feature
+    partitioning,
     SURVEY.md §5 communication row: GBDT data-parallel scales because
     histograms are tiny).
     """
@@ -105,7 +94,7 @@ def grow_tree(binned_T, grad, n_bins: int, n_leaves: int,
 
     dw = (jnp.ones((N,), jnp.float32) if doc_mask is None
           else doc_mask.astype(jnp.float32))
-    root_hist = allr(_hist(binned_T, grad, dw, B))
+    root_hist = allr(hist_xla(binned_T, grad, dw, B))
     S0 = jnp.sum(root_hist[0, :, 0])       # feature 0 bins every doc once
     SQ0 = allr(jnp.sum(dw * grad * grad))
     C0 = jnp.sum(root_hist[0, :, 1])
@@ -172,7 +161,7 @@ def grow_tree(binned_T, grad, n_bins: int, n_leaves: int,
             if build_children:
                 # right child directly, left by subtraction (parent − sibling)
                 w_r = dw * (in_node & (~go_left) & valid)
-                hist_r = allr(_hist(binned_T, grad, w_r, B))
+                hist_r = allr(hist_xla(binned_T, grad, w_r, B))
                 hist_l = hist[leaf] - hist_r
                 # S_r/C_r come from the child histogram itself (feature 0
                 # bins every doc exactly once, so its rows sum the node):
@@ -193,9 +182,7 @@ def grow_tree(binned_T, grad, n_bins: int, n_leaves: int,
 
                 # ONE batched scan over both children (a [2, F, B, 2]
                 # ops.split_scan.best_splits) instead of two sequential scans —
-                # at this size the scan cost is all dispatch latency
-                # (measured: the growth phase is ~1.4 ms/iteration while
-                # its histogram pass is ~0.1 ms; tools/exp_phase_split.py)
+                # at this size the scan cost is mostly launch latency
                 hist_lr = jnp.stack([hist_l, hist_r])
                 fm2 = (None if feature_mask is None
                        else jnp.broadcast_to(feature_mask, (2, F)))
@@ -241,16 +228,6 @@ def grow_tree(binned_T, grad, n_bins: int, n_leaves: int,
                       node_of_doc, impacts)
 
 
-_hist_multi_for_mask = None
-
-
-def _hist_multi(binned, grads, weights, n_bins):
-    global _hist_multi_for_mask
-    if _hist_multi_for_mask is None:
-        _hist_multi_for_mask = histogram_multi_fn()
-    return _hist_multi_for_mask(binned, grads, weights, n_bins)
-
-
 @functools.partial(
     jax.jit, static_argnames=("n_bins", "n_leaves", "min_leaf_support"))
 def grow_forest(binned_T, grads, n_bins: int, n_leaves: int,
@@ -261,9 +238,8 @@ def grow_forest(binned_T, grads, n_bins: int, n_leaves: int,
     The Random-Forests work shape (learning/tree/RFRanker.java:~25): every
     bag shares the binned matrix and differs only in per-doc multiplicity
     weights and a feature mask. Growing the bags' trees together turns the
-    ``Cb`` sequential histogram passes per split into ONE multi-channel
-    kernel call (ops/histogram.py): the dominant one-hot compare work is
-    paid once and each bag adds just two MXU statistic rows. Semantics are
+    ``Cb`` per-bag growth loops into ONE loop whose histogram pass maps
+    over the bags (ops/histogram.py). Semantics are
     bag-for-bag identical to ``grow_tree`` run per bag.
 
     grads: [Cb, N] per-bag pseudo-responses; doc_weights: optional [Cb, N]
@@ -280,7 +256,7 @@ def grow_forest(binned_T, grads, n_bins: int, n_leaves: int,
 
     dw = (jnp.ones((Cb, N), jnp.float32) if doc_weights is None
           else doc_weights.astype(jnp.float32))
-    root_hist = _hist_multi(binned_T, grads, dw, B)            # [Cb,F,B,2]
+    root_hist = hist_multi_xla(binned_T, grads, dw, B)            # [Cb,F,B,2]
     S0 = jnp.sum(dw * grads, axis=1)
     SQ0 = jnp.sum(dw * grads * grads, axis=1)
     C0 = jnp.sum(dw, axis=1)
@@ -353,7 +329,7 @@ def grow_forest(binned_T, grads, n_bins: int, n_leaves: int,
             if build_children:
                 # right child directly, left by subtraction (parent − sibling)
                 w_r = dw * (in_node & (~go_left) & valid[:, None])
-                hist_r = _hist_multi(binned_T, grads, w_r, B)
+                hist_r = hist_multi_xla(binned_T, grads, w_r, B)
                 hist_l = hist[cidx, hidx[cidx, leaf]] - hist_r
                 S_r = jnp.sum(w_r * grads, axis=1)
                 SQ_r = jnp.sum(w_r * grads * grads, axis=1)
@@ -454,11 +430,10 @@ def leaf_outputs(node_of_doc, lam, w, n_slots: int, newton: bool,
     (MART, ref: learning/tree/MART.java:~15). ``doc_mask``: bool mask or
     f32 doc weights (multiplicities), like grow_tree.
 
-    TPU shape: with only ``n_slots`` (= 2·nLeaves−1, ~19) segments, a
-    segment scatter-add serializes on TPU; a masked [M, N] broadcast
-    reduction does the same work as M fused vector sums (the one-hot idea
-    of ops/histogram.py, small enough here to stay on the VPU in exact
-    f32 — leaf outputs feed model values, so no bf16 MXU shortcut)."""
+    With only ``n_slots`` (= 2·nLeaves−1, ~19) segments, a masked [M, N]
+    broadcast reduction does the work of M fused vector sums with no
+    scatter contention, in exact f32 — leaf outputs feed model values,
+    so no bf16 shortcut."""
     dw = None if doc_mask is None else doc_mask.astype(lam.dtype)
     if dw is not None:
         lam = lam * dw

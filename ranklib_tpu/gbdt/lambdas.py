@@ -10,8 +10,8 @@ ordered doc pair (i, j) with label_i > label_j:
     w_i += rho(1−rho)·|Δ|, w_j += rho(1−rho)·|Δ|
 
 The reference parallelizes this over queries with MyThreadPool; here the
-whole O(D²) pair block is one masked [B, D, D] elementwise program (VPU
-work), batched over queries. Callers (gbdt.boost, parallel.dist) hand in
+whole O(D²) pair block is one masked [B, D, D] elementwise program,
+batched over queries. Callers (gbdt.boost, parallel.dist) hand in
 padded query buckets pre-chunked so no pair temporary exceeds a fixed
 element budget.
 """
@@ -103,7 +103,7 @@ def lambda_weights_nosort_err(scorer, labels, scores, mask):
     ERR's swap delta is not product-separable (it carries the prefix
     products Π_{t<r}(1−R_t)), so the separable-path trick doesn't apply;
     instead every rank-prefix quantity of metrics/scorers.err_swap
-    becomes a matvec against the beats matrix (MXU work):
+    becomes a matvec against the beats matrix:
 
         rank_i = Σ_j beats[i, j]
         T_i    = Π_{j before i} (1−R_j) = exp(Σ_j beats[i, j]·log1p(−R_j))
@@ -218,8 +218,7 @@ def lambda_weights_nosort(scorer, labels, scores, mask, scale):
     — marginal next to the pair block we pay anyway) and the position
     weight follows from the closed formula ink(rank)·1/log2(rank+2), so
     the per-round argsorts, take_alongs, and the per-round ideal re-sort
-    all disappear. Measured on v5e at MSLR-30K scale those were ~40% of
-    the lambda phase. ``scale``: [B] from chunk_scale (per-fit constant).
+    all disappear. ``scale``: [B] from chunk_scale (per-fit constant).
 
     Tie-breaking parity: rank_i counts valid docs j with s_j > s_i, plus
     j < i among equal scores — exactly the stable score-desc mergesort
@@ -249,3 +248,43 @@ def lambda_weights_nosort(scorer, labels, scores, mask, scale):
     delta = (jnp.abs(A[:, :, None] - A[:, None, :])
              * jnp.abs(Bv[:, :, None] - Bv[:, None, :]))
     return _pair_lambdas(labels, scores, mask, delta)
+
+
+# Metrics whose swap delta is PRODUCT-SEPARABLE over ranked positions,
+# |Δ_ij| = |A_i − A_j|·|B_i − B_j| — the reference's gain×discount family
+# (ref: metric/NDCGScorer.java:~150). They take the sort-free lambda path
+# (lambda_weights_nosort); ERR/MAP have their own prefix-matvec paths.
+SEPARABLE_METRICS = ("NDCG", "DCG", "P")
+
+
+def separable_vectors(scorer, L, n):
+    """(A, B) per-position vectors for a separable metric; L is RANKED
+    labels [B, D], n true doc counts [B]. Returns None when the metric's
+    swap delta is not product-separable.
+
+    * NDCG@k: A = (2^label − 1)/idealDCG,  B = truncated 1/log2(pos+2)
+    * DCG@k:  A = 2^label − 1,             B = truncated discount
+    * P@k:    A = rel/k_eff,               B = inside-cutoff indicator
+    """
+    from ranklib_tpu.metrics import scorers as S
+
+    if scorer.metric not in SEPARABLE_METRICS:
+        return None
+    D = L.shape[-1]
+    valid = (jnp.arange(D)[None, :] < n[:, None]).astype(jnp.float32)
+    if scorer.metric == "P":
+        rel = (L > 0).astype(jnp.float32) * valid
+        # k <= 0 means NO cutoff (metrics.scorers._k_eff)
+        k_eff = jnp.where(jnp.int32(scorer.k) > 0,
+                          jnp.minimum(jnp.int32(scorer.k), n), n)
+        ke = k_eff.astype(jnp.float32)
+        inv_k = jnp.where(ke > 0, 1.0 / jnp.where(ke > 0, ke, 1.0), 0.0)
+        ink = S._ink(scorer.k, n, D)
+        return rel * inv_k[:, None], ink
+    gain = (jnp.exp2(L) - 1.0) * valid
+    disc = S._ink(scorer.k, n, D) * S._discount(D)[None, :]
+    if scorer.metric == "DCG":
+        return gain, disc
+    ideal = S.dcg_score(S._ideal(L, n), n, scorer.k)
+    inv = jnp.where(ideal > 0, 1.0 / jnp.where(ideal > 0, ideal, 1.0), 0.0)
+    return gain * inv[:, None], disc

@@ -19,7 +19,7 @@ Reference behavior (SURVEY.md §2 L2b; ref: metric/*Scorer.java):
 All functions take ranked labels L[B, D] (padding zeros at the tail) and
 true doc counts n[B]; everything is jit/vmap/grad-safe with static shapes.
 Swap-delta matrices are exact closed forms — no O(D³) recomputation — so
-they batch onto the VPU as [B, D, D] elementwise work.
+they batch as [B, D, D] elementwise work.
 """
 
 from __future__ import annotations

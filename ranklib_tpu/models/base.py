@@ -7,7 +7,7 @@ algorithms by `-ranker N` integer (ref: learning/RankerType.java:~10) or by
 display name (ref: learning/RankerFactory.java:~30). Those integers and the
 ``## <Name>`` model-file header line are API surface and preserved exactly.
 
-Design departures from the reference (TPU-first):
+Design departures from the reference (array-first):
 
 * hyperparameters are per-instance dataclass-style attributes, not mutable
   class statics (the reference sets public static fields before

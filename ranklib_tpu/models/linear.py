@@ -4,8 +4,8 @@ Pointwise least squares of labels on features with ridge regularization
 (ref: learning/LinearRegRank.java:~25 — builds XᵀX and Xᵀy then solves by
 Gaussian elimination with lambda 1e-10 on the diagonal).
 
-TPU-first shape: the normal equations are accumulated as one batched
-matmul over all docs (an [N, F+1]ᵀ[N, F+1] Gram matrix — pure MXU work);
+Array shape: the normal equations are accumulated as one batched
+matmul over all docs (an [N, F+1]ᵀ[N, F+1] Gram matrix);
 the tiny (F+1)² solve runs on host in float64, matching the reference's
 double precision. Model format: '0:<intercept> 1:<w1> ...' (index 0 is the
 intercept; feature fids are 1-indexed).

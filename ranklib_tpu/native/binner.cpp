@@ -18,61 +18,17 @@
 
 #include "common.h"
 
-// One shared search + thread-dealing implementation serves every entry
-// point (review finding, round 5: the i32 and transposed variants had
-// drifted into two parity-pinned copies of the same binary search).
-// bin_features_i32 is bin_features_impl<int32_t, row-major> with
-// clamp = B — a no-op for finite values (bins are <= B by construction)
-// that preserves the NaN -> B rule exactly.
-
 namespace {
-template <typename T, bool TRANSPOSED>
-void bin_rows(const float* feats, const float* thr, T* out,
-              int64_t N, int64_t F, int64_t B, int64_t clamp,
-              int64_t lo_row, int64_t hi_row) {
+void bin_rows(const float* feats, const float* thr, int32_t* out,
+              int64_t F, int64_t B, int64_t lo_row, int64_t hi_row) {
     for (int64_t i = lo_row; i < hi_row; ++i) {
         const float* row = feats + i * F;
         for (int64_t f = 0; f < F; ++f) {
-            const float* t = thr + f * B;
-            const float v = row[f];
-            // shared parity-defining search (common.h): NaN -> B,
-            // then the caller clamp
-            int64_t bin = ranklib_native::bin_of(t, B, v);
-            if (bin > clamp) bin = clamp;
-            (TRANSPOSED ? out[f * N + i] : out[i * F + f]) =
-                static_cast<T>(bin);
+            // shared parity-defining search (common.h): NaN -> B
+            out[i * F + f] = static_cast<int32_t>(
+                ranklib_native::bin_of(thr + f * B, B, row[f]));
         }
     }
-}
-
-template <typename T, bool TRANSPOSED>
-int bin_features_impl(const float* feats, const float* thr, T* out,
-                      int64_t N, int64_t F, int64_t B, int64_t clamp,
-                      int64_t n_threads) {
-    if (N < 0 || F <= 0 || B <= 0 || clamp < 0) return 1;
-    if (N == 0) return 0;
-    int64_t nt = n_threads;
-    if (nt <= 0) {
-        nt = static_cast<int64_t>(std::thread::hardware_concurrency());
-        if (nt <= 0) nt = 1;
-    }
-    if (nt > N) nt = N;
-    if (nt == 1) {
-        bin_rows<T, TRANSPOSED>(feats, thr, out, N, F, B, clamp, 0, N);
-        return 0;
-    }
-    std::vector<std::thread> threads;
-    threads.reserve(static_cast<size_t>(nt));
-    const int64_t step = (N + nt - 1) / nt;
-    for (int64_t b = 0; b < nt; ++b) {
-        const int64_t lo = b * step;
-        const int64_t hi = lo + step < N ? lo + step : N;
-        if (lo >= hi) break;
-        threads.emplace_back(bin_rows<T, TRANSPOSED>, feats, thr, out,
-                             N, F, B, clamp, lo, hi);
-    }
-    for (auto& th : threads) th.join();
-    return 0;
 }
 }  // namespace
 
@@ -81,41 +37,25 @@ extern "C" int bin_features_i32(const float* feats,   // [N, F] row-major
                                 int32_t* out,         // [N, F]
                                 int64_t N, int64_t F, int64_t B,
                                 int64_t n_threads) {
-    return bin_features_impl<int32_t, false>(feats, thr, out, N, F, B,
-                                             /*clamp=*/B, n_threads);
-}
-
-// Serving-upload variant: bin + clamp + narrow + TRANSPOSE in one pass.
-//
-// The host-binned serving path (gbdt/ensemble._eval_matrix_hostbin) used
-// to run four full-matrix passes per chunk: int32 binning, an np.isnan
-// mask + fancy assignment, astype(uint8/int16), and an [N,F]->[F,N]
-// transpose copy — together the dominant serial term once uploads were
-// pipelined (bin_ms 442 of 828 ms wall at 262K docs,
-// tools/exp_serving_pipeline.py 2026-08-21). This entry fuses all four:
-// values bin against the model grid, clamp to `clamp` (= n_grid; exact —
-// node bins are < n_grid and every id >= n_grid routes right like NaN,
-// which IEEE-compares to bin B >= clamp), and write the narrowed id
-// straight into the transposed [F, N] layout the kernel uploads. Row
-// blocks per thread; each thread touches F open output cache lines
-// (~8.7 KB at F=136) — a tiled transpose by construction.
-
-extern "C" int bin_features_u8_T(const float* feats, const float* thr,
-                                 uint8_t* out, int64_t N, int64_t F,
-                                 int64_t B, int64_t clamp,
-                                 int64_t n_threads) {
-    if (clamp > 255) return 1;
-    return bin_features_impl<uint8_t, true>(feats, thr, out, N, F, B,
-                                            clamp, n_threads);
-}
-
-extern "C" int bin_features_i16_T(const float* feats, const float* thr,
-                                  int16_t* out, int64_t N, int64_t F,
-                                  int64_t B, int64_t clamp,
-                                  int64_t n_threads) {
-    if (clamp > 32767) return 1;
-    return bin_features_impl<int16_t, true>(feats, thr, out, N, F, B,
-                                            clamp, n_threads);
+    if (N < 0 || F <= 0 || B <= 0) return 1;
+    if (N == 0) return 0;
+    int64_t nt = n_threads;
+    if (nt <= 0) {
+        nt = static_cast<int64_t>(std::thread::hardware_concurrency());
+        if (nt <= 0) nt = 1;
+    }
+    if (nt > N) nt = N;
+    std::vector<std::thread> threads;
+    threads.reserve(static_cast<size_t>(nt));
+    const int64_t step = (N + nt - 1) / nt;
+    for (int64_t b = 0; b < nt; ++b) {
+        const int64_t lo = b * step;
+        const int64_t hi = lo + step < N ? lo + step : N;
+        if (lo >= hi) break;
+        threads.emplace_back(bin_rows, feats, thr, out, F, B, lo, hi);
+    }
+    for (auto& th : threads) th.join();
+    return 0;
 }
 
 // Capped per-feature unique collection for threshold building

@@ -248,17 +248,6 @@ def _get_bin_lib():
             p_f32, i64, i64, i64, p_f32, ctypes.POINTER(i64), p_f32,
         ]
         lib.feature_uniques.restype = ctypes.c_int
-        if hasattr(lib, "bin_features_u8_T"):
-            lib.bin_features_u8_T.argtypes = [
-                p_f32, p_f32, ctypes.POINTER(ctypes.c_uint8),
-                i64, i64, i64, i64, i64,
-            ]
-            lib.bin_features_u8_T.restype = ctypes.c_int
-            lib.bin_features_i16_T.argtypes = [
-                p_f32, p_f32, ctypes.POINTER(ctypes.c_int16),
-                i64, i64, i64, i64, i64,
-            ]
-            lib.bin_features_i16_T.restype = ctypes.c_int
         _bin_lib = lib
         return _bin_lib
 
@@ -282,42 +271,6 @@ def native_bin_features(feats: np.ndarray, thresholds: np.ndarray):
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
         ctypes.c_int64(N), ctypes.c_int64(F), ctypes.c_int64(thr.shape[1]),
         ctypes.c_int64(0),
-    )
-    if rc != 0:
-        return None
-    return out
-
-
-def native_bin_features_transposed(feats: np.ndarray, thresholds: np.ndarray,
-                                   clamp: int, dtype):
-    """Serving-upload binning: searchsorted 'left' + clamp-to-``clamp``
-    (NaN included) + narrow to ``dtype`` + transpose, fused in one C++
-    pass (binner.cpp bin_features_{u8,i16}_T). Returns [F, N] contiguous
-    ``dtype``, or None when unavailable (caller runs the numpy ladder)."""
-    lib = _get_bin_lib()
-    if lib is None or not hasattr(lib, "bin_features_u8_T"):
-        return None
-    dtype = np.dtype(dtype)
-    if dtype == np.uint8:
-        fn, ctp, lim = lib.bin_features_u8_T, ctypes.c_uint8, 255
-    elif dtype == np.int16:
-        fn, ctp, lim = lib.bin_features_i16_T, ctypes.c_int16, 32767
-    else:
-        return None
-    if not 0 <= clamp <= lim:
-        return None
-    feats = np.ascontiguousarray(feats, dtype=np.float32)
-    thr = np.ascontiguousarray(thresholds, dtype=np.float32)
-    N, F = feats.shape
-    if thr.shape[0] != F:
-        return None
-    out = np.empty((F, N), dtype)
-    rc = fn(
-        feats.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-        thr.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-        out.ctypes.data_as(ctypes.POINTER(ctp)),
-        ctypes.c_int64(N), ctypes.c_int64(F), ctypes.c_int64(thr.shape[1]),
-        ctypes.c_int64(int(clamp)), ctypes.c_int64(0),
     )
     if rc != 0:
         return None

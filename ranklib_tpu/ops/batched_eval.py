@@ -2,7 +2,7 @@
 
 Used by Coordinate Ascent (line-search candidates) and AdaRank (per-feature
 weak rankers): evaluate the mean metric of MANY candidate weight vectors in
-one pass — scores = feats @ W is a single [B·D, F] × [F, C] MXU matmul per
+one pass — scores = feats @ W is a single [B·D, F] × [F, C] matmul per
 bucket, then the metric is vmapped over the candidate axis.
 
 The reference evaluates one candidate at a time on the CPU

@@ -2,21 +2,22 @@
 
 The reference's only parallelism is one intra-process thread pool
 (utilities/MyThreadPool.java — threads partition query ranges in the
-lambda phase and feature ranges in the histogram phase). The TPU
+lambda phase and feature ranges in the histogram phase). The device
 equivalent (SURVEY.md §2 last rows, §5 communication row):
 
 * queries (and their docs) shard over a 1-D ``"batch"`` mesh axis — the
   lambda phase is embarrassingly parallel because every pair matrix is
   query-local;
 * per-tree histogram and node statistics are all-reduced with ``psum``
-  over ICI/DCN — histograms are tiny (F × bins × 2 floats), which is why
-  GBDT data-parallel scales;
+  over the card links (NVLink within a host) — histograms are tiny
+  (F × bins × 2 floats), which is why GBDT data-parallel scales;
 * split decisions replicate deterministically on every device, so tree
   structure needs no further communication.
 
 Multi-host: call ``jax.distributed.initialize()`` before building the
-mesh; the same ``shard_map`` program then spans hosts with collectives
-riding ICI within a slice and DCN across slices.
+mesh; the same ``shard_map`` program then spans hosts, its collectives
+handed to NCCL. The mesh is flat (1-D): every card reaches every other
+at the same rate, so the layout follows the algorithm alone.
 """
 
 from __future__ import annotations

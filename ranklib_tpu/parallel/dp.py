@@ -114,8 +114,8 @@ def shard_feat_buckets(ds: Dataset, n_dev: int, mesh: Mesh,
 
 def shard_sparse_data(ds, n_dev: int, mesh: Mesh, want_qidx: bool = True):
     """Stacked per-device SPARSE evaluation data — the ``-sparse -dp``
-    cross product (round-5 VERDICT task 6: AdaRank silently dropped -dp
-    on wide CSR data).
+    cross product (AdaRank once silently dropped -dp on wide CSR
+    data).
 
     Per-device analog of ``ops.sparse_eval.build_sparse_data``: queries
     are dealt round-robin per padded-size class (``_shard_queries`` — the

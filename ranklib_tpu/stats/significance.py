@@ -7,8 +7,8 @@ query's difference is equally likely to carry either sign, so the
 reference sign-flips the per-query deltas (default 10,000 permutations)
 and reports the fraction of permuted |mean| ≥ observed |mean|.
 
-TPU-first shape: all permutations at once — random ±1 matrix [P, Q] times
-deltas [Q] is ONE matmul on the MXU; the reference's 10k-iteration scalar
+Array shape: all permutations at once — random ±1 matrix [P, Q] times
+deltas [Q] is ONE matmul; the reference's 10k-iteration scalar
 loop disappears.
 """
 

@@ -1,14 +1,21 @@
 """Persistent XLA compilation cache.
 
-The fused boosting round is one large XLA program; its first compile for
-a given shape class costs minutes on TPU. Enabling JAX's persistent cache
-makes every later process (reruns, benchmarks, CV drivers) reuse the
-compiled executable. Off only when RANKLIB_TPU_NO_CACHE is set.
+The fused boosting round is one large XLA program; compiling it costs
+seconds per shape class, so every later process (reruns, benchmarks, CV
+drivers) should reuse the executable. Where ``JAX_COMPILATION_CACHE_DIR``
+is set, JAX places the cache itself and nothing here sets a path.
+Otherwise the cache lives at ``<checkout>/.jax_cache`` (listed in
+``.gitignore``): a fixed path, so it hits across processes. Off when
+``RANKLIB_TPU_NO_CACHE`` is set.
 """
 
 from __future__ import annotations
 
 import os
+
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), ".jax_cache")
 
 
 def enable_compilation_cache() -> None:
@@ -16,12 +23,10 @@ def enable_compilation_cache() -> None:
         return
     import jax
 
-    path = os.environ.get(
-        "RANKLIB_TPU_CACHE_DIR",
-        os.path.join(os.path.expanduser("~"), ".cache", "ranklib_tpu_xla"))
-    try:
-        os.makedirs(path, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-    except Exception:           # cache is best-effort, never fatal
-        pass
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        try:
+            os.makedirs(DEFAULT_DIR, exist_ok=True)
+        except OSError:         # read-only checkout: run uncached
+            return
+        jax.config.update("jax_compilation_cache_dir", DEFAULT_DIR)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)

@@ -84,7 +84,7 @@ def mslr_like_dataset(n_queries: int = 100, seed: int = 0,
                       w_seed: int | None = None,
                       mean_docs: float = 120.0) -> Dataset:
     """Synthetic data matching MSLR-WEB10K's published statistics
-    (VERDICT round-1 task 2: the real-data-shaped quality gate).
+    (the real-data-shaped quality gate).
 
     * labels 0–4 with the WEB10K skew (≈52/32/13/2/1 %), assigned by
       GLOBAL thresholds on a noisy per-doc relevance latent, so per-query

@@ -411,7 +411,7 @@ def test_grow_forest_zero_weight_bag_is_inert():
 
 @pytest.mark.parametrize("metric", ["NDCG@10", "ERR@10"])
 def test_lambda_path_sorted_flag_matches_auto(ranking_data, metric):
-    """The lambda_path='sorted' A/B switch (tools/exp_errmap_ab.py) must
+    """The lambda_path='sorted' A/B switch must
     train the same model as the default routing."""
     train, _ = ranking_data
     scorer = create_scorer(metric)
@@ -485,15 +485,30 @@ def test_best_splits_mls_zero_rejects_empty_sides():
     the scan must reject zero-count sides too (review finding)."""
     import jax.numpy as jnp
 
-    from ranklib_tpu.ops.split_scan import best_splits_xla
+    from ranklib_tpu.ops.split_scan import best_splits
 
     # constant gradients: counts [0, 2, 2], sums equal counts — the
     # empty-left candidate (b=0) exactly ties the proper split (b=1)
     hist = np.zeros((1, 1, 3, 2), np.float32)
     hist[0, 0, :, 1] = [0.0, 2.0, 2.0]
     hist[0, 0, :, 0] = [0.0, 2.0, 2.0]
-    g, f, b, ok = best_splits_xla(jnp.asarray(hist), mls=0.0)
+    g, f, b, ok = best_splits(jnp.asarray(hist), mls=0.0)
     assert bool(ok[0]) and int(b[0]) == 1
+
+
+@pytest.mark.parametrize("thr", ["", "<threshold>   </threshold>"])
+def test_split_without_threshold_is_a_clean_error(thr):
+    """An internal <split> with <feature> but no usable <threshold> must
+    raise RankLibError (the CLI's error path), not AttributeError."""
+    from ranklib_tpu.utils.errors import RankLibError
+
+    text = ("<ensemble><tree id=\"1\" weight=\"0.1\"><split>"
+            f"<feature> 2 </feature>{thr}"
+            "<split pos=\"left\"><output> 1.0 </output></split>"
+            "<split pos=\"right\"><output> -1.0 </output></split>"
+            "</split></tree></ensemble>")
+    with pytest.raises(RankLibError, match="threshold"):
+        TreeEnsemble.from_text(text)
 
 
 def test_deep_chain_tree_xml_roundtrip():

@@ -1,4 +1,4 @@
-"""PR1 gate (BASELINE configs[0]): Linear Regression + Coordinate Ascent,
+"""First-slice gate: Linear Regression + Coordinate Ascent,
 NDCG@10 eval, model save/load round-trips, CLI flows."""
 
 import numpy as np

@@ -143,38 +143,6 @@ def test_native_binner_matches_numpy_exactly():
     assert np.array_equal(got, ref)
 
 
-def test_native_transposed_binner_matches_numpy_ladder():
-    """The fused serving binner (bin + clamp + narrow + transpose in one
-    C++ pass) must equal the numpy ladder exactly on every hostile value
-    class: exact threshold hits, above-every-threshold, NaN (-> clamp),
-    ±inf, -0.0 — for both the uint8 and int16 legs."""
-    from ranklib_tpu.native.loader import native_bin_features_transposed
-
-    rng = np.random.default_rng(23)
-    N, F, B = 3000, 11, 128
-    thr = np.sort(rng.normal(size=(F, B)).astype(np.float32), axis=1)
-    thr[:, 100:] = np.inf                 # lane padding past the real grid
-    clamp = 100                           # = n_grid (real grid size)
-    feats = rng.normal(size=(N, F)).astype(np.float32)
-    feats[::5] = thr[np.arange(F), rng.integers(0, 100, F)]  # exact hits
-    feats[::11] = 1e9                     # above max -> clamp
-    feats[::13, 3] = np.nan               # -> clamp
-    feats[::17, 2] = -np.inf              # -> 0
-    feats[7, 1] = -0.0
-    for dt, lim in ((np.uint8, 255), (np.int16, 32767)):
-        got = native_bin_features_transposed(feats, thr, clamp, dt)
-        if got is None:
-            pytest.skip("native binner unavailable (no compiler)")
-        ref = np.empty((N, F), np.int64)
-        for f in range(F):
-            ref[:, f] = np.searchsorted(thr[f], feats[:, f], side="left")
-        ref = np.minimum(ref, clamp).astype(dt).T
-        assert got.dtype == np.dtype(dt) and got.shape == (F, N)
-        assert np.array_equal(got, ref)
-    # dtype-overflow guard: a clamp the dtype cannot hold must refuse
-    assert native_bin_features_transposed(feats, thr, 300, np.uint8) is None
-
-
 def test_native_thresholds_match_numpy_exactly():
     """compute_thresholds via the capped-hash C++ uniques pass must equal
     the np.unique path exactly: categorical (<=tc uniques), constant

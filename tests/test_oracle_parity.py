@@ -1,13 +1,13 @@
-"""Engine vs independent-oracle parity (VERDICT round-1 task 1).
+"""Engine vs independent-oracle parity.
 
 `tools/oracle.py` re-implements the reference algorithm in pure numpy
 float64 with per-query nested loops and brute-force swap-delta metric
 recomputation, sharing NO code with `ranklib_tpu`. These tests pin the
-fused TPU-shaped engine against it: lambda gradients per metric, single
+fused array-shaped engine against it: lambda gradients per metric, single
 tree structures, and multi-round end-to-end training (tree-for-tree
 structure, leaf outputs, metric trajectories, early stop, rollback).
 
-Agreement here is the falsifiable form of the BASELINE north star (NDCG@10
+Agreement here is the falsifiable form of the parity goal (NDCG@10
 within ±0.002 of RankLib): two implementations that share nothing but the
 published algorithm description produce the same models.
 """
@@ -242,14 +242,10 @@ def test_estop_and_rollback_parity():
 
 @pytest.mark.slow
 def test_drift_at_depth_100_trees():
-    """f32 drift over a deep ensemble (VERDICT round-2 task 8; SURVEY §7
-    names this the main parity risk). Measured 2026-08-20
-    (tools/exp_drift_depth.py): structures stay split-for-split identical
-    through 250 trees; max |score drift| 7.1e-07 at 100 trees / 2.3e-06 at
-    250 (≈9e-9/tree — extrapolates to ~1e-5 at the reference's 1000-tree
-    default, 200× inside the ±0.002 north star); train-NDCG diff < 5e-8.
-    The engine needs no f64 score accumulation. This test pins the
-    100-tree point with headroom."""
+    """f32 drift over a deep ensemble (SURVEY §7 names this the main
+    parity risk): structures must stay split-for-split identical to the
+    float64 oracle at 100 trees, with score drift far inside the ±0.002
+    north star — the engine needs no f64 score accumulation."""
     ds = synth_dataset(n_queries=60, n_features=8, min_docs=20, max_docs=40,
                        gmax=2, seed=171)
     scorer = create_scorer("NDCG@10")

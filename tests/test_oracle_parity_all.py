@@ -1,10 +1,10 @@
 """Engine vs independent-oracle parity for the non-GBDT rankers
-(VERDICT round-2 task 2).
+(rankers other than the GBDT family).
 
 `tools/oracle.py` re-derives every training algorithm in pure numpy
 float64 straight from the reference semantics (per-pair/per-query loops,
 explicit pair distributions, hand-written backprop — no autodiff, no
-shared code with ranklib_tpu). These tests pin the fused TPU-shaped
+shared code with ranklib_tpu). These tests pin the fused array-shaped
 engines against it for `-ranker` 1, 2, 3, 4, 5, 7, 8, 9 — together with
 tests/test_oracle_parity.py (rankers 0 and 6) every training semantic in
 the CLI surface is engine-vs-oracle pinned.

@@ -212,7 +212,7 @@ def test_mesh_fit_warm_start_resume():
 
 
 def test_scaling_harness_mechanism():
-    """The one-command scaling harness (VERDICT round-2 task 6) runs the
+    """The one-command scaling harness runs the
     full device-count ladder on the virtual CPU mesh: mechanism + sanity
     only — the ≥80% efficiency NUMBER needs real multi-host hardware
     (docs/SCALING.md holds the committed virtual-mesh table)."""
@@ -313,8 +313,8 @@ def test_neural_mesh_minibatch_deterministic_and_learns():
 def test_neural_dp_converged_quality_matches_sequential():
     """The documented neural DP departure (synchronous minibatch of n
     queries/step vs the reference's sequential per-query SGD) does not
-    cost quality at convergence — VERDICT r04 weak #7. Measured
-    2026-08-21 on a 64-query planted-signal fixture: RankNet 100 ep
+    cost quality at convergence. Measured on the CPU on a 64-query
+    planted-signal fixture: RankNet 100 ep
     0.9162 (n=1) vs 0.9161 (n=8), 60 ep 0.8656 vs 0.8656; ListNet
     100 ep 0.7858 vs 0.7858. Band ±0.005 (the quality-gate
     tolerance)."""
@@ -446,7 +446,7 @@ def test_rf_mesh_streamed_binned_matches_dense():
 
 
 def test_adarank_sparse_mesh_matches_single_device(tmp_path, monkeypatch):
-    """-sparse -dp cross product (round-5 VERDICT task 6): the sharded
+    """-sparse -dp cross product: the sharded
     sparse score layer (parallel/dp.py shard_sparse_data) must reproduce
     the single-device sparse fit — identical feature sequence, alpha
     within f32 reduction-order noise. Includes a DP-sharded validation

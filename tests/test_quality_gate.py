@@ -1,11 +1,11 @@
-"""Mechanical quality gate (VERDICT round-1 task 2).
+"""Mechanical quality gate.
 
 Re-runs every ranker config from tools/gen_quality.py on the
 MSLR-statistics-shaped fixture and asserts each train/test NDCG@10 stays
 inside the committed band in QUALITY.json. A quality regression in any
 ranker fails THIS test loudly instead of silently aging a hand-edited
 QUALITY.md table. After an intentional quality-affecting change,
-regenerate with `RANKLIB_TPU_PLATFORM=cpu python tools/gen_quality.py`
+regenerate with `JAX_PLATFORMS=cpu python tools/gen_quality.py`
 and commit the new QUALITY.json.
 """
 

@@ -1,4 +1,4 @@
-"""Host-CSR pipeline for raw-value rankers (VERDICT round-2 task 7).
+"""Host-CSR pipeline for raw-value rankers.
 
 The reference serves ALL rankers from storage-level sparse vectors
 (ref: learning/SparseDataPoint.java:~15); here `-sparse` lands the file
@@ -322,13 +322,13 @@ def test_qrel_on_descless_dataset_errors():
     os.unlink(qrel)
 
 
-def test_bins_kernel_gate_rejects_wide_grids(monkeypatch):
-    """Bin ids above 256 are not bf16-exact: the route gate must reject
-    a model with >256 distinct thresholds on one feature."""
-    import ranklib_tpu.utils.backend as backend
-    from ranklib_tpu.gbdt.ensemble import Tree, TreeEnsemble
+def test_wide_grid_model_scores_like_traversal():
+    """A model with >256 distinct thresholds on one feature (a grid no
+    uint8 bin id can index) scores exactly through eval_matrix."""
+    import jax.numpy as jnp
 
-    monkeypatch.setattr(backend, "on_tpu", lambda: True)
+    from ranklib_tpu.gbdt.ensemble import Tree, TreeEnsemble, _ensemble_eval
+
     rng = np.random.default_rng(0)
 
     def stump(thr):
@@ -339,16 +339,15 @@ def test_bins_kernel_gate_rejects_wide_grids(monkeypatch):
                     is_leaf=np.array([False, True, True]),
                     output=np.array([0.0, -1.0, 1.0], np.float32))
 
-    small = TreeEnsemble()
-    for thr in rng.normal(size=50):
-        small.add(stump(np.float32(thr)), 0.1)
-    assert small._use_bins_kernel(4)
-
     wide = TreeEnsemble()
     for thr in rng.normal(size=300):
         wide.add(stump(np.float32(thr)), 0.1)
-    assert wide._bins_grid_meta()[1] == 300
-    assert not wide._use_bins_kernel(4)
+    X = rng.normal(size=(64, 4)).astype(np.float32)
+    X[:8, 0] = [t.threshold[0] for t in wide.trees[:8]]   # on-threshold
+    fe, th, lf, rt, lv, ot, wt, depth = wide._pack()
+    want = np.asarray(_ensemble_eval(jnp.asarray(X), fe, th, lf, rt, lv,
+                                     ot, wt, depth=depth))
+    np.testing.assert_allclose(wide.eval_matrix(X), want, atol=1e-5)
 
 
 def test_kcv_sparse_gbdt_streams_binned(tmp_path, sparse_file):
@@ -861,7 +860,7 @@ def test_sparse_qrel_error_not_misdiagnosed(tmp_path, sparse_desc_file,
 def test_sparse_eval_layer_property(seed):
     """Property: sparse_mean_metric == the dense evaluator's mean_metric
     for random CSR data and random candidate matrices (gather/segment-sum
-    vs MXU matmul — reduction orders differ, so 1e-5)."""
+    vs dense matmul — reduction orders differ, so 1e-5)."""
     import tempfile
 
     from ranklib_tpu.ops.batched_eval import LinearMetricEvaluator

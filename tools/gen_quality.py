@@ -1,5 +1,5 @@
 """Mechanical quality gate: all ten rankers on the MSLR-statistics-shaped
-fixture (VERDICT round-1 task 2).
+fixture.
 
 Runs every ranker at fixed CPU-scale configs on `tests.fixtures.
 mslr_like_dataset` (WEB10K label skew, doc-count tail, family-correlated
@@ -10,7 +10,7 @@ reproduce mechanically instead of living in a hand-edited table.
 
 Regenerate after an intentional quality-affecting change:
 
-    RANKLIB_TPU_PLATFORM=cpu python tools/gen_quality.py
+    JAX_PLATFORMS=cpu python tools/gen_quality.py
 
 and commit the updated QUALITY.json.
 """
@@ -22,10 +22,9 @@ import sys
 import time
 from pathlib import Path
 
-sys.path.insert(0, "/root/repo")
-sys.path.insert(0, "/root/repo/tests")
-
 REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+sys.path.insert(0, str(REPO / "tests"))
 
 # One fixed fixture for the whole gate (≈7K docs train, ≈3.5K test).
 FIXTURE = dict(train=dict(n_queries=60, seed=101, mean_docs=60.0),

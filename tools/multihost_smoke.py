@@ -3,11 +3,11 @@
 `tests/test_parallel.py` proves the psum'd tree grower bit-matches the
 single-device grower on a single-process 8-device mesh. This tool runs
 the SAME check across genuinely separate processes wired together with
-``jax.distributed.initialize`` (Gloo collectives standing in for
-ICI/DCN) — the actual multi-host program shape of
-``parallel/dist.py``'s design (SURVEY.md §5 communication row): on a
-real multi-host v5e slice the identical code runs with
-``jax.distributed.initialize()`` picking up the TPU coordinator.
+``jax.distributed.initialize`` (Gloo collectives standing in for the
+card links) — the actual multi-host program shape of
+``parallel/dist.py``'s design (SURVEY.md §5 communication row): on GPU
+hosts the identical code runs with ``jax.distributed.initialize`` given
+the coordinator address, process count and process id.
 
 Usage (launcher spawns the workers):
 

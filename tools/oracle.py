@@ -1,15 +1,15 @@
 """Independent RankLib-semantics oracle: pure numpy float64, deliberately slow.
 
 This module is the *falsifier* for the production engine's parity claim
-(BASELINE.json north_star: NDCG@10 within ±0.002 of RankLib). It
+(the parity goal: NDCG@10 within ±0.002 of RankLib). It
 re-implements the reference algorithm the way the reference describes it —
 per-query nested pair loops, brute-force metric recomputation for swap
 deltas, explicit per-node histograms scanned feature-major, best-first
 leaf-wise growth, Newton leaf outputs, validation early-stop and best-round
 rollback — and shares NO code with `ranklib_tpu` (it does not even import
 it). Tests pin multi-round end-to-end agreement (tree structures, leaf
-outputs, metric trajectories) between this oracle and the fused TPU-shaped
-engine.
+outputs, metric trajectories) between this oracle and the fused
+array-shaped engine.
 
 Reference anchors (SURVEY.md canonical paths; the mount is empty):
   * lambdas:   learning/tree/LambdaMART.java:~300 computePseudoResponses

@@ -4,7 +4,7 @@ Runs the SAME train/test files through this framework's CLI and through
 ``java -jar RankLib.jar`` with equivalent flags, then compares:
 
 * the printed train/test metric (target: NDCG@10 within ±0.002 —
-  BASELINE.json north star);
+  parity goal);
 * model-file cross-loading: our saved model evaluated by the jar and the
   jar's model evaluated by us must score identically (±1e-4 per query).
 
